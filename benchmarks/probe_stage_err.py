@@ -36,7 +36,7 @@ fix, and lumping them with the inverse transforms overstated the
 non-compensatable floor.
 
 Run on CPU with x64:
-  PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
+  JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
       python benchmarks/probe_stage_err.py --Nv 32 [--Nv 64]
 """
 

@@ -1,11 +1,12 @@
-"""boltzfft — TPU-native fast Fourier spectral method for the Boltzmann
-collision operator.
+"""boltzfft — fast Fourier spectral method for the Boltzmann collision
+operator in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the reference
-C++/CUDA code ``i3s93/Boltzmann-Fourier-Spectral-Method``: Gauss-Legendre x
+A JAX/XLA rebuild of the capabilities of the reference C++/CUDA code
+``i3s93/Boltzmann-Fourier-Spectral-Method``: Gauss-Legendre x
 spherical-design quadrature decomposition of the VHS collision kernel, batched
-3-D FFT evaluation of the gain/loss terms, BKW analytic validation, moments,
-RK time stepping, and ICI sharding of the quadrature-node and ensemble axes.
+3-D FFT evaluation of the gain/loss terms (cuFFT on a GPU), BKW analytic
+validation, moments, RK time stepping, and sharding of the quadrature-node and
+ensemble axes over several devices.
 """
 
 from .bkw import bkw_dfdt, bkw_f, bkw_k, maxwellian
@@ -13,8 +14,8 @@ from .grid import VelocityGrid, domain_from_support
 from .conserve import (ConservePrecomp, build_conserve_precomp,
                        conservative, project)
 from .moments import Moments, entropy, moments
-from .operator import (collide, fused_fits_vmem, gain_spectrum,
-                       make_collision_operator)
+from .device import PipelineChoice, pipeline_choice
+from .operator import collide, gain_spectrum, make_collision_operator
 from .quadrature import (
     SPHERICAL_DESIGN_FILES,
     Quadrature1D,
@@ -48,7 +49,7 @@ from .distributed import (
     process_local_ensemble_slice,
 )
 from .stats import RunStats, error_norms, error_norms_device, time_fn, trace
-from .tune import autotune, autotune_ds, autotune_fused
+from .tune import autotune, autotune_ds
 from .timestepper import (
     Trajectory,
     euler_step,
@@ -76,7 +77,6 @@ __all__ = [
     "process_local_ensemble_slice",
     "autotune",
     "autotune_ds",
-    "autotune_fused",
     "ds",
     "DsPrecomp",
     "build_ds_precomp",
@@ -105,7 +105,8 @@ __all__ = [
     "bkw_k",
     "build_precomp",
     "collide",
-    "fused_fits_vmem",
+    "PipelineChoice",
+    "pipeline_choice",
     "domain_from_support",
     "entropy",
     "ConservePrecomp",

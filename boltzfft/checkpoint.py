@@ -3,7 +3,7 @@
 The reference's only persisted artifact is the FFTW wisdom file (plan cache,
 ``FFTWBoltzmannOperator.cpp:60-68``) — state checkpointing does not exist
 there (SURVEY.md section 6).  For production ensemble relaxations (hours of
-wall clock, preemptible TPU capacity) this module persists the full solver
+wall clock, preemptible accelerator capacity) this module persists the full solver
 state — distribution ``f`` (arbitrary sharding, incl. multi-host: orbax
 writes each shard from its owning process), simulation time, and step
 counter — with atomic directory commits and retention.

@@ -16,7 +16,8 @@ import argparse
 
 
 def standard_parser(description: str) -> argparse.ArgumentParser:
-    """Shared flags: --Nv, --Ns, -t/--trials (+ dtype/impl, TPU-era additions)."""
+    """Shared flags: --Nv, --Ns, -t/--trials (+ dtype/impl and the pipeline
+    options this package adds)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--Nv", type=int, default=32, help="velocity grid points per axis")
     p.add_argument("--Nvy", type=int, default=None,
@@ -30,52 +31,41 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
         help="compute dtype (default: float64 if the backend supports it)",
     )
     p.add_argument(
-        "--impl", choices=["auto", "rfft", "c2c", "dft", "fused", "ds"],
+        "--impl", choices=["auto", "rfft", "c2c", "dft", "ds"],
         default="rfft",
         help="pipeline: rfft (real transforms, default), c2c (reference-"
-             "faithful), dft (MXU einsums), fused (Pallas megakernel), "
-             "ds (compensated double-single: f64-class accuracy on f32 "
-             "TPUs); auto = fused on TPU / rfft elsewhere (the spatial "
-             "drivers' default — the vmapped megakernel is ~9x the staged "
-             "pipeline on cell batches, Results/taylor_green_r5.txt)",
+             "faithful), dft (DFT matrix products), ds (compensated "
+             "double-single: f64-class digits from float32 pairs); auto = "
+             "the backend's choice (boltzfft.device.pipeline_choice)",
     )
     p.add_argument(
-        "--ds-contract", choices=["vpu", "oz", "ozk"], default=None,
+        "--ds-contract", choices=["vpu", "oz"], default=None,
         help="ds transform engine (--impl ds only): vpu = compensated "
-             "rank-1 (bit-exact reference), oz = Ozaki-scheme MXU slicing "
-             "(TPU default, ~5-7x faster), ozk = force the Pallas kernel",
+             "rank-1 updates (bit-exact reference), oz = Ozaki-scheme "
+             "sliced bf16 matrix products; default = the backend's choice",
     )
     p.add_argument(
         "--oz-cmax", type=int, default=None,
-        help="Ozaki slice-pair retention for the ds oz/ozk engines "
-             "(default 6 = all reference digits; 5 = ~1.3x faster at "
-             "last-digit Linf drift, 7 = max retention)",
+        help="Ozaki slice-pair retention for the ds oz engine (default 6 = "
+             "all reference digits; lower drops the last digits, 7 = max "
+             "retention)",
     )
     p.add_argument(
-        "--g-stream", choices=["full", "half"], default=None,
-        help="ds oz/ozk inverse-stream formulation: full = direct complex "
+        "--g-stream", choices=["full", "half"], default="full",
+        help="ds oz inverse-stream formulation: full = direct complex "
              "streams, half = exact half-spectrum Nyquist-block "
              "decomposition (same digits, less transform work; even grids)",
     )
     p.add_argument(
-        "--group-batch", type=int, default=None,
-        help="ds half path: radial groups per kernel launch set (must "
-             "divide the radial group count; default = measured auto "
-             "rule, gb=2 on grids <= 32/axis on TPU)",
+        "--group-batch", type=int, default=1,
+        help="ds half path: radial groups per batch of contractions (must "
+             "divide the radial group count)",
     )
     p.add_argument(
         "--oz-merge", choices=["on", "off"], default=None,
-        help="ds oz/ozk engines: K-merged complex contraction (half the "
+        help="ds oz engine: K-merged complex contraction (half the "
              "compensated-fold work; exactness gated per stage by "
-             "oz.merge_ok).  Default = measured auto rule (on; +18%% at "
-             "32^3, +11%% at 64^3, digits unchanged)",
-    )
-    p.add_argument(
-        "--gmain-fused", choices=["auto", "off", "3", "12"], default="auto",
-        help="ds half path: fused main-block kernel mode.  auto = measured "
-             "rule (whole-node '3' kernel where it fits, <=~40/axis), off = "
-             "staged merged kernels, 3/12 = force the whole-node or "
-             "z-half-blocked variant (bit-identical results either way)",
+             "oz.merge_ok).  Default on",
     )
     p.add_argument(
         "--g1-reversal", action="store_true",
@@ -83,7 +73,7 @@ def standard_parser(description: str) -> argparse.ArgumentParser:
              "physical velocity reversal — EXACT ONLY for centrally "
              "symmetric f(v) = f(-v) (e.g. the BKW/Maxwellian relaxation "
              "states this driver evaluates); halves the dominant per-node "
-             "transform work (~1.4x at 64^3)",
+             "transform work",
     )
     p.add_argument(
         "--node-chunk", type=int, default=None,
@@ -119,36 +109,27 @@ def vhs_kwargs(args) -> dict:
 
 
 def resolve_impl(impl: str) -> str:
-    """Resolve ``--impl auto``: the fused megakernel on TPU (the vmapped
-    kernel batches cells at ~9x the staged pipeline — measured,
-    Results/taylor_green_r5.txt; it self-degrades to staged rfft past its
-    VMEM ceiling), staged rfft elsewhere (interpret-mode Pallas on CPU is
-    a debugging path, not a speed path)."""
+    """Resolve ``--impl auto`` to the backend's staged pipeline
+    (:func:`boltzfft.device.pipeline_choice`)."""
     if impl != "auto":
         return impl
-    import jax
+    from boltzfft.device import pipeline_choice
 
-    return "fused" if jax.default_backend() == "tpu" else "rfft"
+    return pipeline_choice().impl
 
 
 def enable_cache_default() -> None:
     """Turn on the persistent XLA compilation cache for CLI runs (the FFTW
-    wisdom-file analog, `boltzfft.cache`): a driver rerun at the same config
-    skips the multi-minute compile.  Respects an explicit
-    ``JAX_COMPILATION_CACHE_DIR`` and can be disabled with
-    ``BOLTZFFT_NO_CACHE=1``.  Failures are non-fatal (read-only homes)."""
+    wisdom-file analog, :func:`boltzfft.cache.enable_compilation_cache`): a
+    driver rerun at the same config skips the compile.  Disabled with
+    ``BOLTZFFT_NO_CACHE=1``."""
     import os
 
     if os.environ.get("BOLTZFFT_NO_CACHE") == "1":
         return
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return  # jax picks the env var up itself
-    try:
-        from boltzfft import enable_compilation_cache
+    from boltzfft import enable_compilation_cache
 
-        enable_compilation_cache()
-    except Exception:
-        pass
+    enable_compilation_cache()
 
 
 def default_dtype() -> str:

@@ -1,6 +1,6 @@
 """BKW accuracy + performance driver — the main entry point.
 
-TPU-native rebuild of ``maxwell_bkw_fftw.cpp`` / ``maxwell_bkw_cuda.cu``:
+Rebuild of ``maxwell_bkw_fftw.cpp`` / ``maxwell_bkw_cuda.cu``:
 builds the BKW distribution for Maxwell molecules, evaluates the collision
 operator over timed trials, and reports run statistics plus L1/L2/Linf errors
 against the analytic ``df/dt`` in the reference's output format.
@@ -99,8 +99,7 @@ def main(argv=None):
         times.append(time.perf_counter() - t0)
     print(bz.RunStats.from_times(times).summary(f"boltzfft/{args.impl}"))
 
-    # norms reduced on device — full-array reads are slow/unsupported on
-    # remote accelerators, and only three scalars are needed
+    # norms reduced on device: only three scalars come back to the host
     err = bz.error_norms_device(
         q, jnp.asarray(q_bkw, cfg.real_dtype), cell_volume=g.cell_volume
     )
@@ -112,8 +111,8 @@ def main(argv=None):
 
 
 def _run_ds(args):
-    """Compensated double-single evaluation: f64-class BKW errors on f32-only
-    accelerators (``boltzfft.ds_operator``).  The input is split exactly from
+    """Compensated double-single evaluation: f64-class BKW errors from float32
+    pairs (``boltzfft.ds_operator``).  The input is split exactly from
     host float64 and the error norms are reduced on device in ds arithmetic."""
     import jax
     import jax.numpy as jnp
@@ -137,9 +136,7 @@ def _run_ds(args):
         cfg, jit=False, contract=args.ds_contract, oz_cmax=args.oz_cmax,
         g_stream=args.g_stream, group_batch=args.group_batch,
         oz_merge=None if args.oz_merge is None else args.oz_merge == "on",
-        gmain_fused={"auto": None, "off": False}.get(
-            args.gmain_fused, args.gmain_fused),
-        g1_reversal=args.g1_reversal or None,
+        g1_reversal=args.g1_reversal,
     )
 
     if args.steps > 0:

@@ -12,6 +12,7 @@ production workload its collision kernel feeds.
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 
@@ -53,6 +54,9 @@ def main(argv=None):
     cfg = bz.CollisionConfig(nv=args.Nv, ns=args.Ns, impl=resolve_impl(args.impl),
                              dtype=dtype, node_chunk=args.node_chunk,
                              n_radial=args.n_radial or args.Nv)
+    if args.node_chunk is None:  # the cells of one device share its memory
+        cfg = dataclasses.replace(cfg, node_chunk=cfg.auto_chunk(
+            batch=args.nx // max(1, args.mesh_cells or 1)))
     g = cfg.velocity_grid
     dx = args.x_length / args.nx
     dt = args.dt or transport.cfl_dt(float(np.abs(np.asarray(g.v)).max()), dx)

@@ -26,7 +26,7 @@ costs 5 reductions + one fused broadcast per eval — negligible against
 the transforms.  It perturbs Q pointwise by O(the moment defect), i.e.
 below the method error on resolved grids (asserted by the test suite).
 
-TPU-native formulation: everything is one einsum-like contraction over
+Formulation: everything is one einsum-like contraction over
 precomputed host-f64 basis arrays; no data-dependent control flow.
 """
 

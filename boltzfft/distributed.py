@@ -1,25 +1,24 @@
 """Multi-process (multi-host) runtime initialization and mesh layout.
 
 The reference is strictly single-node (``slurm_run_maxwell_bkw_fftw.sb:8-9``:
-``--nodes=1 --ntasks=1``); its only scaling axis is OpenMP threads.  The
-TPU-native equivalent spans hosts: each process owns its local chips,
-``jax.distributed`` wires the processes into one runtime, and the same
-``shard_map`` program from :mod:`boltzfft.sharding` runs over the global
-device set — node-axis ``psum`` traffic rides ICI within a slice, only
-ensemble (no-communication) axes should cross the DCN boundary between
-slices.
+``--nodes=1 --ntasks=1``); its only scaling axis is OpenMP threads.  Here a
+run can span hosts: each process owns its local GPUs, ``jax.distributed``
+wires the processes into one runtime, and the same ``shard_map`` program from
+:mod:`boltzfft.sharding` runs over the global device set — node-axis ``psum``
+traffic stays on the NVLink within a host, only ensemble (no-communication)
+axes should cross the inter-node network.
 
-Usage on each host (or let the TPU pod runtime auto-detect everything)::
+Usage on each process::
 
     import boltzfft as bz
-    bz.initialize_distributed()          # env/TPU-metadata auto-detection
+    bz.initialize_distributed("host0:1234", num_processes=2, process_id=0)
     mesh = bz.make_multihost_mesh(ensemble_hosts=True)
     collide_fn, pre = bz.make_sharded_collision_operator(cfg, mesh, ...)
 
 Design rule encoded in :func:`make_multihost_mesh`: the quadrature-node axis
 (one psum per eval) must never span processes unless explicitly requested —
-crossing DCN with the gain reduction turns a microsecond ICI collective into
-a millisecond network round trip per eval.
+crossing the inter-node network with the gain reduction turns an NVLink
+collective into a network round trip per eval.
 """
 
 from __future__ import annotations
@@ -40,13 +39,13 @@ def initialize_distributed(
 ) -> bool:
     """Initialize the multi-process JAX runtime (idempotent).
 
-    With no arguments, relies on ``jax.distributed``'s auto-detection (TPU
-    pod metadata, or the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
-    / ``JAX_PROCESS_ID`` environment triplet).  Returns ``True`` if a
-    multi-process runtime is active after the call, ``False`` for the
-    single-process case (no coordinator configured and nothing to detect) —
-    single-process operation is never an error, so the same driver script
-    runs unmodified on one chip or a pod.
+    The coordinator comes from ``coordinator_address`` or the
+    ``JAX_COORDINATOR_ADDRESS`` environment variable (with
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` for the other two).  Returns
+    ``True`` if a multi-process runtime is active after the call, ``False``
+    for the single-process case (no coordinator configured) — single-process
+    operation is never an error, so the same driver script runs unmodified
+    on one GPU or many hosts.
     """
     import jax
 
@@ -65,11 +64,7 @@ def initialize_distributed(
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
-    # A *pod* means multiple workers; a single-worker TPU VM also sets
-    # TPU_WORKER_HOSTNAMES, and initializing there is pointless.
-    workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    on_tpu_pod = "," in workers
-    if coordinator_address is None and not on_tpu_pod:
+    if coordinator_address is None:
         return False  # plain single-process run
     try:
         jax.distributed.initialize(
@@ -100,13 +95,13 @@ def make_multihost_mesh(
     ensemble_hosts: bool = True,
 ):
     """2-D ``(ensemble, node)`` mesh laid out so the node axis stays within a
-    host/slice (psum on ICI) and the ensemble axis spans hosts (DCN sees no
-    per-eval traffic).
+    host (psum over NVLink) and the ensemble axis spans hosts (the
+    inter-node network sees no per-eval traffic).
 
     * ``node_devices_per_host``: node-axis span per host (default: all local
       devices of each host).
     * ``ensemble_hosts=False`` asserts the run is node-only across hosts: it
-      rejects multi-process topologies whose node psum would cross DCN.  On a
+      rejects multi-process topologies whose node psum would cross hosts.  On a
       single process it is purely an assertion — the mesh is still 2-D, with
       ensemble size ``len(devices) // node_size`` (1 when ``node_size`` spans
       all devices); pass ``node_devices_per_host=len(jax.devices())`` for a
@@ -131,7 +126,7 @@ def make_multihost_mesh(
     if not ensemble_hosts and n_hosts > 1:
         raise ValueError(
             "ensemble_hosts=False with multiple processes would run the "
-            "node-axis psum over DCN; pass node_devices_per_host explicitly "
+            "node-axis psum across hosts; pass node_devices_per_host explicitly "
             "if that is really intended"
         )
     # Sort devices host-major so contiguous node groups are host-local.

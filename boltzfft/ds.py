@@ -1,25 +1,23 @@
 """Double-single ("ds") arithmetic: ~2x-precision floats from hardware pairs.
 
-TPU v5e has no native float64 (and the hosted runtime disables XLA's f64
-emulation), but the 64^3 configuration's *method* error is 3.1e-12 — three
-decades below the f32 floor (measured error budget in docs/PERFORMANCE.md).
-This module closes that gap in software: every value is an unevaluated sum
+The 64^3 configuration's *method* error is 3.1e-12 — three decades below the
+f32 floor.  This module reaches it from float32 arithmetic alone: every value
+is an unevaluated sum
 ``hi + lo`` of two hardware floats with ``|lo| <= ulp(hi)/2``, giving ~2x the
 hardware mantissa (f32 pairs ~ 48-49 bits ~ 1e-14 relative).  All primitives
 are the classical error-free transformations (Dekker 1971, Knuth TAOCP 4.2.2;
 the same algebra as CUDA's ``double-single`` and the QD library's
 ``dd_real``), expressed as branch-free jnp elementwise ops so they vectorize
-on the VPU and compose under jit/vmap/scan.
+and compose under jit/vmap/scan.
 
 Used by :mod:`boltzfft.ds_operator` for the compensated collision pipeline
-(``CollisionConfig`` companion path) — the TPU answer to the reference's
-native-f64 FFTW backend (``FFTWBoltzmannOperator.cpp``) for accuracy-critical
-runs on f32-only hardware.
+(``CollisionConfig`` companion path) — a float32-pair counterpart of the
+reference's native-f64 FFTW backend (``FFTWBoltzmannOperator.cpp``).
 
 Correctness requirement: IEEE-correct rounding of +,-,* at the working dtype.
-XLA preserves this on TPU VPU f32 ops (no reassociation of user arithmetic);
-an FMA fusion of ``a*b - p`` only *improves* ``two_prod``'s residual.  The
-test suite checks the invariants numerically on every backend.
+XLA does not reassociate user arithmetic; an FMA fusion of ``a*b - p`` only
+*improves* ``two_prod``'s residual.  The test suite checks the invariants
+numerically, and ``chip_smoke.py`` checks the pipeline's digits on the GPU.
 """
 
 from __future__ import annotations
@@ -258,8 +256,8 @@ def contract_last(
 ) -> CDS:
     """``out[..., l] = sum_k x[..., k] * m[k, l]`` in full ds arithmetic.
 
-    The contraction runs as a ``fori_loop`` of rank-1 updates (VPU elementwise
-    work — the compensated accumulation cannot ride the MXU, whose f32
+    The contraction runs as a ``fori_loop`` of rank-1 updates (elementwise
+    work — the compensated accumulation cannot ride the matrix units, whose f32
     accumulator is exactly the precision being escaped).  ``block`` rank-1
     updates are unrolled per loop iteration, fusing into one accumulator pass
     (divides the dominant HBM read-modify-write cost by ``block``) at the
@@ -317,17 +315,6 @@ def _roll_axis(x: CDS, src: int, dst: int) -> CDS:
     return CDS(DS(f(x.re.hi), f(x.re.lo)), DS(f(x.im.hi), f(x.im.lo)))
 
 
-def default_contract_block() -> int:
-    """Backend-tuned ``block`` for :func:`contract_last`.
-
-    Bit-identical numerics either way; this is purely a compiler trade.
-    Measured on the full pipeline at 32^3: TPU block=4 compiles 8x faster
-    (309 s -> 40 s) AND runs 1.14x faster than block=1, while XLA:CPU's
-    compile time explodes with unrolled bodies (>900 s at block=8).
-    """
-    return 4 if jax.default_backend() == "tpu" else 1
-
-
 def _per_axis(m):
     """Normalize a transform-matrix argument to an (mx, my, mz) triple —
     a single shared CDS matrix (cubic grids) or a per-axis plain tuple
@@ -337,7 +324,7 @@ def _per_axis(m):
 
 
 def transform3(
-    x: CDS, m, block: Optional[int] = None,
+    x: CDS, m, block: int = 1,
     real_in: bool = False, real_out: bool = False,
 ) -> CDS:
     """Separable 3-D transform of the trailing (Nx, Ny, Nz) axes with the
@@ -348,14 +335,13 @@ def transform3(
     the first contraction); ``real_out``: only the real output is needed
     (skips half the last contraction)."""
     mx, my, mz = _per_axis(m)
-    b = default_contract_block() if block is None else block
     # z (last) axis
-    x = contract_last(x, mz, block=b, real_in=real_in)
+    x = contract_last(x, mz, block=block, real_in=real_in)
     # y axis
-    x = _swap_last2(contract_last(_swap_last2(x), my, block=b))
+    x = _swap_last2(contract_last(_swap_last2(x), my, block=block))
     # x axis
     x = _roll_axis(
-        contract_last(_roll_axis(x, -3, -1), mx, block=b, real_out=real_out),
+        contract_last(_roll_axis(x, -3, -1), mx, block=block, real_out=real_out),
         -1, -3,
     )
     return x

@@ -2,12 +2,12 @@
 
 The reference is single-node/single-device — its only scaling mechanism is
 OpenMP threads over the quadrature-node batch (``FFTWBoltzmannOperator.cpp:191-193``).
-The TPU-native equivalents (SURVEY.md section 3, parallelism inventory):
+The equivalents here (SURVEY.md section 3, parallelism inventory):
 
 * **Node-axis sharding** ("tensor parallel" analog): the quadrature batch
   ``b = (r, s)`` is embarrassingly parallel except for the final gain
   reduction; each device evaluates its node shard against a replicated ``f``
-  and a single ``psum`` over ICI combines partial gain spectra.  FFTs remain
+  and a single ``psum`` combines partial gain spectra.  FFTs remain
   shard-local (the sharded axis is never an FFT axis) — no distributed FFT.
 * **Ensemble sharding** ("data parallel" analog): independent distributions
   (e.g. spatial cells of a 0D-3V ensemble) spread across devices with no
@@ -60,11 +60,6 @@ def _node_sharded_precomp(cfg: CollisionConfig, n_shards: int) -> Precomp:
     """Precomp whose node axis divides evenly into ``n_shards`` x chunks."""
     pre = build_precomp(cfg)
     local = -(-cfg.n_nodes // n_shards)
-    if cfg.impl == "fused":
-        # The megakernel's radial-group hoisting assumes every group of
-        # consecutive nodes shares one rho; shard boundaries must therefore
-        # fall on whole spherical-design groups.
-        local = -(-local // cfg.ns_eff) * cfg.ns_eff
     if cfg.node_chunk is not None:
         c = cfg.chunk
         local = -(-local // c) * c
@@ -84,8 +79,11 @@ def _precomp_specs(node_axis: Optional[str], pre: Precomp) -> Precomp:
         lz=P(None),
         norm_l=rep3,
         beta2=rep3,
-        dft_fwd=None if pre.dft_fwd is None else rep3,
-        dft_inv=None if pre.dft_inv is None else rep3,
+        **{
+            name: None if getattr(pre, name) is None else rep3
+            for name in ("dft_fwd", "dft_inv", "dft_fwd_y", "dft_inv_y",
+                         "dft_fwd_z", "dft_inv_z")
+        },
     )
 
 
@@ -129,7 +127,6 @@ def make_sharded_collision_operator(
         mesh=mesh,
         in_specs=(f_spec, _precomp_specs(node_axis, pre)),
         out_specs=f_spec,
-        # vma inference cannot see through pallas_call outputs (impl="fused");
         # the node-axis psum placement is explicit in `body`.
         check_vma=False,
     )
@@ -175,8 +172,7 @@ def place_cells(
     No solver changes are needed downstream: under ``jit`` XLA's SPMD
     partitioner lowers the advection stencils' ``jnp.roll`` halo exchanges
     (:func:`boltzfft.transport._advect_muscl_axis`) to nearest-neighbor
-    ``collective-permute`` ops over the mesh (ICI neighbors on real
-    hardware), and the collision substep — batched over cells — runs
+    ``collective-permute`` ops over the mesh, and the collision substep — batched over cells — runs
     shard-local with zero cross-cell traffic.  Asserted by
     ``tests/test_transport.py::TestSpatialSharding`` (sharded-vs-unsharded
     parity + halo collectives present in the compiled module).  The

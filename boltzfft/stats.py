@@ -3,7 +3,7 @@
 Equivalent of the reference's ``Utilities/statistics.hpp`` (min/max/mean/stdev
 over trial timings + ``print_stats_summary``, ``statistics.hpp:11-63``) plus a
 JAX-aware timer that uses ``block_until_ready`` to bracket device work — the
-TPU analog of the reference's ``omp_get_wtime`` brackets
+analog of the reference's ``omp_get_wtime`` brackets
 (``maxwell_bkw_fftw.cpp:133-140``).
 """
 
@@ -136,8 +136,7 @@ def error_norms_device(
 ) -> dict[str, float]:
     """Same norms reduced on the device; only three scalars cross to the host.
 
-    Use instead of :func:`error_norms` when the accelerator is remote —
-    full-array device-to-host reads are slow or unsupported there.
+    Use instead of :func:`error_norms` to keep large arrays on the device.
     """
     import jax.numpy as jnp
 

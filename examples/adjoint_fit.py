@@ -2,8 +2,7 @@
 
 Recovers the temperature of a Maxwellian from an observed collision rate by
 differentiating THROUGH the operator: given Q_obs = Q(f(T*), f(T*)), minimize
-``||Q(f(T)) - Q_obs||^2`` over T with Adam.  Works with every pipeline —
-including ``impl="fused"``, whose Pallas forward carries a custom VJP — and
+``||Q(f(T)) - Q_obs||^2`` over T with Adam.  Works with every pipeline, and
 is the adjoint workflow (data assimilation, kernel calibration) the C++/CUDA
 reference cannot express at all.
 
@@ -29,7 +28,7 @@ def main(argv=None):
     p.add_argument("--Nv", type=int, default=16)
     p.add_argument("--Ns", type=int, default=6)
     p.add_argument("--impl", default="rfft",
-                   choices=["rfft", "c2c", "dft", "fused"])
+                   choices=["rfft", "c2c", "dft"])
     p.add_argument("--steps", type=int, default=40)
     args = p.parse_args(argv)
 

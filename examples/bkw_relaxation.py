@@ -1,7 +1,7 @@
 """Example: relax a BKW distribution to equilibrium and track moments.
 
 Run (CPU f64):
-    PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/bkw_relaxation.py
+    JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/bkw_relaxation.py
 """
 
 import sys

@@ -7,7 +7,7 @@ spectrally (faster than any power of 1/Nv) until it hits the quadrature or
 arithmetic floor.
 
 Run (CPU f64):
-    PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/convergence_study.py
+    JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/convergence_study.py
 """
 
 import sys

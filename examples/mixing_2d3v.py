@@ -7,13 +7,13 @@ toward local equilibrium.  Demonstrates the 2D Strang-split solver
 spatial axes + per-cell collisions) and conservation diagnostics.
 
 Run (CPU f64):
-    PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/mixing_2d3v.py
+    JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python examples/mixing_2d3v.py
 
 Pass ``--shard`` to run the same problem spatially decomposed over the
 available devices (`transport.make_sharded_step_2d`: shard_map with
 ppermute halo exchange, shard-local collision FFTs) — e.g. with an
 8-device virtual CPU mesh:
-    PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \\
+    JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \\
       XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
       python examples/mixing_2d3v.py --shard
 """

@@ -1,7 +1,7 @@
 """The Ozaki-scheme sliced contraction, standalone.
 
 Demonstrates the core trick behind ``boltzfft.oz`` (the engine that runs the
-f64-class collision pipeline's transforms on the TPU MXU): a double-single
+f64-class collision pipeline's transforms as bf16 matrix products): a double-single
 value splits into 7-bit mantissa chunks that are exactly representable in
 bfloat16; chunk-pair dot products accumulate *exactly* in a 24-bit f32
 accumulator (7 + 7 + log2(K) <= 24 bits for K <= 1024); and the handful of

@@ -1,15 +1,16 @@
-"""Example: the accuracy/cost ladder on an f32-only accelerator.
+"""Example: the float32 accuracy/cost ladder.
 
-Evaluates the same BKW configuration through each pipeline and prints
-error vs wall time — the menu a production user picks from on TPU:
+Evaluates the same BKW configuration through each float32 pipeline and
+prints error vs wall time:
 
-  fused (default)   fastest; bf16-class matmul passes
-  fused (highest)   multi-pass f32-faithful matmuls
-  rfft              staged XLA pipeline, f32-best accuracy
-  ds                compensated double-single: f64-class digits on
-                    hardware without float64 (boltzfft/ds_operator.py)
+  dft (default)     DFT matrix products at the device's fastest f32 precision
+                    (TF32 on a GPU with tensor cores)
+  dft (highest)     DFT matrix products at full f32 precision
+  rfft              staged cuFFT/XLA pipeline, f32-best accuracy
+  ds                compensated double-single: f64-class digits from
+                    float32 pairs (boltzfft/ds_operator.py)
 
-Run (any backend; on CPU the Pallas kernels run in interpret mode):
+Run (any backend):
     python examples/precision_ladder.py --Nv 16
 """
 
@@ -65,8 +66,8 @@ def main(argv=None):
     print(f"{'':>16} {'(method+arith)':>12} {'(vs ds)':>12}")
 
     variants = [
-        ("fused default", dict(impl="fused", fused_precision="default")),
-        ("fused highest", dict(impl="fused", fused_precision="highest")),
+        ("dft default", dict(impl="dft", dft_precision="default")),
+        ("dft highest", dict(impl="dft", dft_precision="highest")),
         ("rfft", dict(impl="rfft")),
     ]
     for name, kw in variants:

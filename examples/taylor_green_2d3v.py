@@ -19,9 +19,9 @@ spatially decomposed solver
 ppermute halo exchange, shard-local collision FFTs — zero cross-cell
 traffic in the collision substep).
 
-Run (8-device virtual CPU mesh; on a real TPU pod slice the same code
-shards over ICI):
-    PYTHONPATH= JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \\
+Run (8-device virtual CPU mesh; on several GPUs the same code shards over
+the real devices):
+    JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \\
       XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
       python examples/taylor_green_2d3v.py
 

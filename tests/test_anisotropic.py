@@ -15,13 +15,6 @@ from tests.reference_direct import direct_collision
 
 
 class TestConfig:
-    def test_fused_transpose_rejects_anisotropic(self):
-        # round-3: dft/fused support per-axis grids; only the fused
-        # "transpose" scheme remains cubic-bound.
-        with pytest.raises(ValueError, match="cubic"):
-            bz.CollisionConfig(nv=8, nvy=10, ns=6, impl="fused",
-                               fused_scheme="transpose")
-
     def test_dft_accepts_anisotropic(self):
         cfg = bz.CollisionConfig(nv=8, nvz=10, ns=6, impl="dft")
         pre = bz.build_precomp(cfg)
@@ -86,11 +79,21 @@ class TestMoments:
 
 
 class TestParity:
-    @pytest.mark.parametrize("impl", ["rfft", "c2c"])
+    @pytest.mark.parametrize("impl", ["rfft", "c2c", "dft"])
     def test_direct_sum_parity(self, impl):
         """Anisotropic operator vs the independent O(B) NumPy oracle."""
+        self._direct_parity(impl, (8, 12, 10))
+
+    @pytest.mark.parametrize("impl", ["rfft", "dft"])
+    @pytest.mark.parametrize("shape", [(12, 6, 8), (6, 10, 12)])
+    def test_direct_sum_parity_more_shapes(self, impl, shape):
+        self._direct_parity(impl, shape)
+
+    def _direct_parity(self, impl, shape):
+        nv, nvy, nvz = shape
         cfg = bz.CollisionConfig(
-            nv=8, nvy=12, nvz=10, ns=6, n_radial=4, impl=impl, dtype="float64"
+            nv=nv, nvy=nvy, nvz=nvz, ns=6, n_radial=4, impl=impl,
+            dtype="float64",
         )
         g = cfg.velocity_grid
         f = np.asarray(bz.bkw_f(g.r_squared(), 6.5), np.float64)
@@ -142,10 +145,8 @@ class TestParity:
 
 
 class TestAnisotropicFusedDft:
-    """Per-axis transform matrices in the dft einsum path and the fused
-    megakernel (kron table = kron(Vy, Vz); ct = per-axis radix splits).
-    Round-3 completion of the reference ctor generality
-    (``FFTWBoltzmannOperator.hpp:32``)."""
+    """Per-axis transform matrices in the dft einsum path (the reference
+    ctor generality, ``FFTWBoltzmannOperator.hpp:32``)."""
 
     def _parity(self, nv, nvy, nvz, impl, tol=1e-12, **kw):
         cfg = bz.CollisionConfig(nv=nv, nvy=nvy, nvz=nvz, ns=6, impl=impl, **kw)
@@ -160,19 +161,3 @@ class TestAnisotropicFusedDft:
 
     def test_dft_matches_c2c(self):
         self._parity(8, 12, 16, "dft")
-
-    def test_fused_kron_matches_c2c(self):
-        self._parity(8, 12, 16, "fused", fused_scheme="kron")
-
-    @pytest.mark.slow
-    def test_fused_kron_all_axes_distinct(self):
-        # slow tier: kron-anisotropic already covered by (8,12,16) above
-        self._parity(16, 8, 12, "fused", fused_scheme="kron")
-
-    def test_fused_ct_io_matches_c2c(self):
-        # forced ct exercises the per-axis radix split + io megakernel
-        self._parity(8, 12, 16, "fused", fused_scheme="ct")
-
-    def test_fused_auto_verdict_case(self):
-        # the round-2 verdict's named target configuration
-        self._parity(32, 16, 48, "fused")

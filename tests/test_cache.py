@@ -36,8 +36,41 @@ class TestPrecompSerialization:
 
 
 class TestCompilationCache:
-    def test_enable(self, tmp_path):
-        path = bz.enable_compilation_cache(tmp_path / "xla-cache")
+    def test_enable(self, monkeypatch):
+        # no JAX_COMPILATION_CACHE_DIR: the fixed <checkout>/.xla_cache
         import jax
 
-        assert jax.config.jax_compilation_cache_dir == path
+        from boltzfft import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        updates = {}
+        monkeypatch.setattr(jax.config, "update",
+                            lambda k, v: updates.__setitem__(k, v))
+        path = bz.enable_compilation_cache()
+        assert path == str(cache.CHECKOUT / ".xla_cache")
+        assert (cache.CHECKOUT / "boltzfft" / "cache.py").exists()
+        assert updates["jax_compilation_cache_dir"] == path
+
+    def test_env_var_wins_and_sets_nothing(self, monkeypatch, tmp_path):
+        import jax
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        updates = {}
+        monkeypatch.setattr(jax.config, "update",
+                            lambda k, v: updates.__setitem__(k, v))
+        assert bz.enable_compilation_cache() == str(tmp_path)
+        assert updates == {}
+
+    def test_default_path_is_fixed(self, monkeypatch):
+        # part of the cache key: never a temporary or per-process directory
+        import os
+        from pathlib import Path
+
+        from boltzfft import cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setenv("TMPDIR", "/elsewhere")
+        path = cache.compilation_cache_dir()
+        assert path == cache.compilation_cache_dir()
+        assert Path(path).parent == cache.CHECKOUT
+        assert str(os.getpid()) not in path

@@ -68,10 +68,9 @@ class TestMaxwellBKW:
         assert "Linf error:" in out
 
     def test_ds_knob_plumbing(self, monkeypatch):
-        # the round-4 flags (--gmain-fused, --g1-reversal) must reach the ds
-        # factory with the documented semantics; digits are pinned end-to-end
-        # by the on-hardware selfcheck matrix (ds-oz-rev-even row) and the
-        # test_half_spectrum oracles, so this only checks the arg plumbing
+        # the ds flags (--g-stream, --g1-reversal, --ds-contract) must reach
+        # the ds factory with the documented semantics; digits are pinned by
+        # the test_half_spectrum oracles, so this only checks the plumbing
         import boltzfft as bz
         from boltzfft.cli import maxwell_bkw
 
@@ -83,19 +82,20 @@ class TestMaxwellBKW:
 
         monkeypatch.setattr(bz, "make_ds_collision_operator", fake_factory)
         args = ["--Nv", "8", "--Ns", "6", "--n-radial", "4", "--impl", "ds",
-                "--g-stream", "half", "--g1-reversal", "--gmain-fused", "12"]
+                "--g-stream", "half", "--g1-reversal", "--ds-contract", "oz"]
         with pytest.raises(RuntimeError, match="stop after capture"):
             maxwell_bkw.main(args)
         assert seen["g1_reversal"] is True
-        assert seen["gmain_fused"] == "12"
+        assert seen["contract"] == "oz"
         assert seen["g_stream"] == "half"
 
         seen.clear()
         with pytest.raises(RuntimeError, match="stop after capture"):
             maxwell_bkw.main(["--Nv", "8", "--Ns", "6", "--n-radial", "4",
                               "--impl", "ds"])
-        # defaults: auto kernel rule, reversal strictly opt-in (None/absent)
-        assert seen["gmain_fused"] is None
+        # defaults: the backend's engine, full streams, reversal opt-in
+        assert seen["contract"] is None
+        assert seen["g_stream"] == "full"
         assert not seen["g1_reversal"]
 
     @pytest.mark.slow

@@ -1,7 +1,7 @@
-"""Multi-process (multi-host/DCN analog) tests.
+"""Multi-process (multi-host analog) tests.
 
 Two real OS processes, each owning 2 forced-host CPU devices, joined via
-``jax.distributed`` over localhost — the CPU stand-in for a 2-host TPU pod.
+``jax.distributed`` over localhost — the CPU stand-in for two GPU hosts.
 Validates that the (ensemble, node) multihost mesh layout produces results
 identical to a single-process evaluation.
 """
@@ -29,7 +29,7 @@ def _free_port() -> int:
 def _launch(rank: int, n: int, port: int, out: str):
     env = dict(os.environ)
     env.update(
-        PYTHONPATH=str(REPO),  # drops sitecustomize; subprocess reads env vars
+        PYTHONPATH=str(REPO),  # the workers import this checkout
         JAX_PLATFORMS="cpu",
         JAX_ENABLE_X64="0",
         XLA_FLAGS="--xla_force_host_platform_device_count=2",
@@ -83,6 +83,20 @@ class TestHelpers:
     def test_single_process_initialize_is_noop(self):
         # no coordinator configured -> single-process run, not an error
         assert bz.initialize_distributed() in (False, True)
+
+    def test_no_coordinator_means_single_process(self, monkeypatch):
+        # only JAX_COORDINATOR_ADDRESS or an explicit argument starts a
+        # multi-process runtime; other cluster variables are ignored
+        import jax
+
+        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+        monkeypatch.setenv("SLURM_JOB_NODELIST", "host[0-1]")
+        called = []
+        monkeypatch.setattr(jax.distributed, "initialize",
+                            lambda **kw: called.append(kw))
+        if jax.process_count() == 1:
+            assert bz.initialize_distributed() is False
+            assert called == []
 
     def test_local_slice(self):
         start, size = bz.process_local_ensemble_slice(8)

@@ -88,7 +88,7 @@ class TestHalfStreamSharding:
 
         mesh = bz.make_mesh([(bz.NODE_AXIS, 2)])
         coll_sh, pre_sh = bz.make_sharded_ds_collision_operator(
-            cfg, mesh, contract="ozk", g_stream="half", sub_batch=6
+            cfg, mesh, contract="oz", g_stream="half", sub_batch=6
         )
         q_sh = ds.to_f64(coll_sh(f, bz.place_ds(pre_sh, mesh)))
         scale = np.abs(q_ref).max()
@@ -104,7 +104,7 @@ class TestHalfStreamSharding:
 
         mesh = bz.make_mesh([(bz.NODE_AXIS, 2)])
         coll_sh, pre_sh = bz.make_sharded_ds_collision_operator(
-            cfg, mesh, contract="ozk", g_stream="half", sub_batch=6,
+            cfg, mesh, contract="oz", g_stream="half", sub_batch=6,
             group_batch=2, herm_downstream=True,
         )
         q_sh = ds.to_f64(coll_sh(f, bz.place_ds(pre_sh, mesh)))

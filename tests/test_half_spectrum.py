@@ -159,8 +159,8 @@ def test_half_spectrum_decomposition_exact(shape, seed):
 
 
 def test_half_z_matrix_form():
-    """The main block's z stage as the (N/2, N) real-out matrix the kernel
-    will contract with: out = Re(t @ M) with M[k, jz] = wt_k * alpha_z(k) *
+    """The main block's z stage as the (N/2, N) real-out matrix the
+    contraction uses: out = Re(t @ M) with M[k, jz] = wt_k * alpha_z(k) *
     exp(2i pi jz k / N) / N — equals the loop form above."""
     n = 16
     rng = np.random.default_rng(7)
@@ -213,7 +213,7 @@ class TestHalfStreamPipeline:
         f = ds.from_f64(_noise_f(cfg))
         q_vpu = ds.to_f64(collide_ds(cfg, pre, f, contract="vpu", sub_batch=6))
         q_half = ds.to_f64(
-            collide_ds(cfg, pre, f, contract="ozk", g_stream="half",
+            collide_ds(cfg, pre, f, contract="oz", g_stream="half",
                        sub_batch=6)
         )
         rel = np.max(np.abs(q_half - q_vpu)) / np.max(np.abs(q_vpu))
@@ -231,7 +231,7 @@ class TestHalfStreamPipeline:
         f = ds.from_f64(_noise_f(cfg, seed=3))
         q_vpu = ds.to_f64(collide_ds(cfg, pre, f, contract="vpu"))
         q = ds.to_f64(
-            collide_ds(cfg, pre, f, contract="ozk", g_stream="half",
+            collide_ds(cfg, pre, f, contract="oz", g_stream="half",
                        herm_downstream=False)
         )
         rel = np.max(np.abs(q - q_vpu)) / np.max(np.abs(q_vpu))
@@ -254,7 +254,7 @@ class TestHalfStreamPipeline:
                                  dtype="float32")
         pre = build_ds_precomp(cfg)
         q = ds.to_f64(
-            collide_ds(cfg, pre, ds.from_f64(f64), contract="ozk",
+            collide_ds(cfg, pre, ds.from_f64(f64), contract="oz",
                        g_stream="half", sub_batch=6)
         )
         rel = np.max(np.abs(q - q_ref)) / np.max(np.abs(q_ref))
@@ -268,7 +268,7 @@ class TestHalfStreamPipeline:
         f = ds.from_f64(_noise_f(cfg, seed=3))
         q_vpu = ds.to_f64(collide_ds(cfg, pre, f, contract="vpu", sub_batch=6))
         q_half = ds.to_f64(
-            collide_ds(cfg, pre, f, contract="ozk", g_stream="half",
+            collide_ds(cfg, pre, f, contract="oz", g_stream="half",
                        sub_batch=6)
         )
         rel = np.max(np.abs(q_half - q_vpu)) / np.max(np.abs(q_vpu))
@@ -278,11 +278,7 @@ class TestHalfStreamPipeline:
         # radial-group launch batching (group_batch>1) must be a pure
         # layout change: per-group Hadamard sums, forward transforms, and
         # the beta1 accumulation order are the gb=1 sequence exactly, so
-        # parity here is BIT-level against gb=1 on the staged twin.
-        # contract="oz" off-TPU runs the staged XLA twin for transforms —
-        # the group-batch layout code (ds_operator + hadamard_wsum_half's
-        # groups>1 twin) is identical to the kernel path and much faster
-        # to test than forcing the Pallas interpreter
+        # parity here is BIT-level against gb=1.
         cfg = bz.CollisionConfig(nv=6, ns=6, n_radial=4, impl="c2c",
                                  dtype="float32")
         pre = build_ds_precomp(cfg)
@@ -297,7 +293,7 @@ class TestHalfStreamPipeline:
 
     def test_group_batch_matches_vpu(self):
         # default tier: one gb=2 program (the production small-grid shape:
-        # herm downstream, multi-group kernel windows, mid-scan restarts)
+        # herm downstream, multi-group batches, mid-scan restarts)
         # against the cheap-to-compile vpu reference; the strict gb=1
         # bit-parity sweep lives in the slow tier
         cfg = bz.CollisionConfig(nv=6, ns=6, n_radial=4, impl="c2c",
@@ -341,7 +337,7 @@ class TestHalfStreamPipeline:
         pre = build_ds_precomp(cfg, node_mats=False)
         f = ds.from_f64(_noise_f(cfg))
         with pytest.raises(ValueError, match="half"):
-            collide_ds(cfg, pre, f, contract="ozk", g_stream="half")
+            collide_ds(cfg, pre, f, contract="oz", g_stream="half")
 
 
 class TestMergedContraction:
@@ -363,7 +359,7 @@ class TestMergedContraction:
         q_vpu = ds.to_f64(collide_ds(cfg, pre, f, contract="vpu"))
         for gs in ("full", "half"):
             q = ds.to_f64(
-                collide_ds(cfg, pre, f, contract="ozk", g_stream=gs,
+                collide_ds(cfg, pre, f, contract="oz", g_stream=gs,
                            oz_merge=True)
             )
             rel = np.max(np.abs(q - q_vpu)) / np.max(np.abs(q_vpu))
@@ -384,7 +380,7 @@ class TestMergedContraction:
         )
         m = oz.slice_matrix_nodes(m64)
         out = oz.contract_last_oz_nodemat(
-            x, m, repeat=True, interpret=True, merged=True
+            x, m, repeat=True, merged=True
         )
         val = (
             np.asarray(out.re.hi, np.float64) + np.asarray(out.re.lo, np.float64)
@@ -407,10 +403,10 @@ class TestMergedContraction:
         )
         m = oz.slice_matrix_nodes(m64)
         a = oz.contract_last_oz_nodemat(
-            x, m, repeat=True, interpret=True, real_out=True
+            x, m, repeat=True, real_out=True
         )
         b = oz.contract_last_oz_nodemat(
-            x, m, repeat=True, interpret=True, real_out=True, merged=True
+            x, m, repeat=True, real_out=True, merged=True
         )
         va = np.asarray(a.re.hi, np.float64) + np.asarray(a.re.lo, np.float64)
         vb = np.asarray(b.re.hi, np.float64) + np.asarray(b.re.lo, np.float64)
@@ -435,84 +431,8 @@ class TestMergedContraction:
         )
         with pytest.raises(ValueError, match="merge"):
             oz.contract_last_oz_nodemat(
-                x, m, repeat=True, interpret=True, merged=True
+                x, m, repeat=True, merged=True
             )
-
-
-class TestGmainFused:
-    """Fused 3-stage g-main megakernel (oz.gmain3_nodemat): one kernel per
-    node runs the y, x, and half-z contractions with in-register transposes
-    — BIT-identical to the staged merged chain (same chunk extraction, same
-    staircase dots, same compensated fold order; only the stage boundaries
-    — ds writes + XLA transposes + ds reads — disappear)."""
-
-    def test_gmain_fused_bitwise_matches_staged(self):
-        cfg = bz.CollisionConfig(nv=8, ns=6, n_radial=4, impl="c2c",
-                                 dtype="float32")
-        pre = build_ds_precomp(cfg)
-        f = ds.from_f64(_noise_f(cfg, seed=13))
-        q_s = collide_ds(cfg, pre, f, contract="oz", g_stream="half",
-                         gmain_fused=False)
-        for mode in ("3", "12", True):
-            q_f = collide_ds(cfg, pre, f, contract="oz", g_stream="half",
-                             gmain_fused=mode)
-            assert np.array_equal(np.asarray(q_s.hi), np.asarray(q_f.hi)), mode
-            assert np.array_equal(np.asarray(q_s.lo), np.asarray(q_f.lo)), mode
-
-    def test_gmain_fused_anisotropic(self):
-        # distinct per-axis extents exercise all the in-kernel transposes
-        cfg = bz.CollisionConfig(nv=6, nvy=8, nvz=10, ns=6, n_radial=4,
-                                 impl="c2c", dtype="float32")
-        pre = build_ds_precomp(cfg)
-        f = ds.from_f64(_noise_f(cfg, seed=14))
-        q_s = collide_ds(cfg, pre, f, contract="oz", g_stream="half",
-                         gmain_fused=False)
-        for mode in ("3", "12"):
-            q_f = collide_ds(cfg, pre, f, contract="oz", g_stream="half",
-                             gmain_fused=mode)
-            assert np.array_equal(np.asarray(q_s.hi), np.asarray(q_f.hi)), mode
-            assert np.array_equal(np.asarray(q_s.lo), np.asarray(q_f.lo)), mode
-
-    def test_gmain12_zh_blocking_invariance(self):
-        # the z-half grid split must not change a single bit (rows are
-        # independent; same dots, same fold) — compare zb=1 vs full
-        from boltzfft import oz
-
-        cfg = bz.CollisionConfig(nv=8, ns=6, n_radial=4, impl="c2c",
-                                 dtype="float32")
-        pre = build_ds_precomp(cfg)
-        rng = np.random.default_rng(21)
-        x = oz.CDS(
-            ds.from_f64(rng.standard_normal((8, 4, 8))),
-            ds.from_f64(rng.standard_normal((8, 4, 8))),
-        )
-        xp = oz.preslice_rows(x, interpret=True, merged=True)
-        m64 = rng.standard_normal((3, 8, 8)) + 1j * rng.standard_normal(
-            (3, 8, 8)
-        )
-        m = oz.slice_matrix_nodes(m64)
-        outs = [
-            oz.gmain12_nodemat(xp, m, m, (8, 8, 8), zh_block=zb,
-                               interpret=True)
-            for zb in (1, 2, 4)
-        ]
-        for o in outs[1:]:
-            for a, b in zip(jax.tree.leaves(outs[0]), jax.tree.leaves(o)):
-                assert np.array_equal(np.asarray(a), np.asarray(b))
-
-    def test_gmain_fused_requires_merge_ok(self):
-        # forcing the fused path past the merged exactness bound must fail
-        # loudly, not silently produce inexact level dots
-        from boltzfft import oz
-
-        assert not oz.merge_ok(128)
-        rng = np.random.default_rng(7)
-        m64 = rng.standard_normal((1, 128, 8)) + 1j * rng.standard_normal(
-            (1, 128, 8)
-        )
-        m = oz.slice_matrix_nodes(m64)
-        with pytest.raises(ValueError, match="merge"):
-            oz.gmain3_nodemat(None, m, m, m, (8, 128, 16), interpret=True)
 
 
 def _even_f(cfg, seed=0):
@@ -562,9 +482,9 @@ class TestG1Reversal:
         )
         take0 = lambda t: jax.tree.map(lambda a: a[0, :2], t)
         ft = DS_PIPELINE_FOLD_TAIL
-        r1w = _g_main_half(fhs, None, take0(pre.pm1[1]), take0(pre.pm1[0]),
+        r1w = _g_main_half(fhs, take0(pre.pm1[1]), take0(pre.pm1[0]),
                            take0(pre.pmz_half1w), cmax, slw, ft, merged=True)
-        r2 = _g_main_half(fhs, None, take0(pre.pm2[1]), take0(pre.pm2[0]),
+        r2 = _g_main_half(fhs, take0(pre.pm2[1]), take0(pre.pm2[0]),
                           take0(pre.pmz_half2), cmax, slw, ft, merged=True)
         w = (np.asarray(pre.gain_w.hi[0, :2], np.float64)
              + np.asarray(pre.gain_w.lo[0, :2], np.float64))

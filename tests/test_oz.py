@@ -1,4 +1,4 @@
-"""Tests for the Ozaki-scheme sliced MXU contraction (boltzfft.oz).
+"""Tests for the Ozaki-scheme sliced bf16 contraction (boltzfft.oz).
 
 Validates the three exactness layers the scheme stands on (chunk
 reconstruction, matrix splitting, exact level sums) and the end results:
@@ -13,7 +13,7 @@ import pytest
 
 import boltzfft as bz
 from boltzfft import ds, oz
-from boltzfft.ds_operator import build_ds_precomp, collide_ds, default_contract
+from boltzfft.ds_operator import build_ds_precomp, collide_ds
 
 
 @pytest.fixture(scope="module")
@@ -38,33 +38,15 @@ class TestSlicing:
         sl = oz.slice_ds_last(x)
         assert np.all(np.asarray(sl, np.float64) == 0.0)
 
-    def test_preslice_rows_layout_and_reconstruction(self, rng):
-        # preslice_rows = the kernel's in-kernel extraction hoisted out; the
-        # staircase kernel slices per-group lane prefixes of it, and the
-        # chunk columns must reconstruct the ds value to the 2^-49 residual
-        k, cmax = 32, 6
-        a64 = rng.standard_normal((16, k)) * 10.0 ** rng.uniform(-8, 5, (16, 1))
-        b64 = rng.standard_normal((16, k)) * 10.0 ** rng.uniform(-8, 5, (16, 1))
-        x = ds.CDS(ds.from_f64(a64), ds.from_f64(b64))
-        ps = oz.preslice_rows(x, cmax=cmax, interpret=True)
-        sx_eff = min(oz.DEFAULT_SLICES_X, cmax + 1)
-        assert ps.all_re.shape == (16, sx_eff * k)
-        assert ps.all_re.dtype == jnp.bfloat16
-        # staircase groups cover every retained level exactly once, with
-        # chunk prefixes that can reach them
-        lg = oz._level_groups(cmax + 1, sx_eff)
-        assert [d for (d0, d1, _n) in lg for d in range(d0, d1)] == list(
-            range(cmax + 1)
-        )
-        assert all(n == min(d1, sx_eff) for (_d0, d1, n) in lg)
-        for comp, chunks in ((a64, ps.all_re), (b64, ps.all_im)):
-            rec = np.zeros_like(comp)
-            for i in range(sx_eff):
-                rec += np.asarray(
-                    chunks[:, i * k : (i + 1) * k], np.float64
-                )
-            scale = np.max(np.abs(comp), axis=-1, keepdims=True)
-            assert np.max(np.abs(rec - comp) / scale) < 2.0 ** -48
+    def test_phase_sigma_bounds_rows(self, rng):
+        # the per-row scale of the row-block contractions: strictly above
+        # every |entry| of the row (so chunk 0 fits w bits), within a factor
+        # of a power of two of the row max
+        a = rng.standard_normal((16, 32)) * 10.0 ** rng.uniform(-8, 5, (16, 1))
+        sig = np.asarray(oz._phase_sigma(jnp.asarray(a, jnp.float32)))
+        amax = np.max(np.abs(np.asarray(a, np.float32)), axis=-1,
+                      keepdims=True)
+        assert np.all(sig > amax) and np.all(sig <= 4.0 * amax)
 
     def test_chunks_are_bf16_exact(self, rng):
         # each chunk must be exactly representable in bfloat16: the f64 sum
@@ -113,20 +95,20 @@ class TestContraction:
         np.testing.assert_array_equal(np.asarray(eager.re.hi), np.asarray(jitted.re.hi))
         np.testing.assert_array_equal(np.asarray(eager.re.lo), np.asarray(jitted.re.lo))
 
-    def test_kernel_matches_staged(self, rng):
-        # the fused Pallas kernel (interpret mode here) and the staged XLA
-        # path share the same compensated arithmetic
+    def test_nodemat_matches_staged(self, rng):
+        # the per-node-matrix row contraction (one node, shared x) and the
+        # staged contraction compute the same compensated product
         x64 = (
             rng.standard_normal((16, 32)) * 10.0 ** rng.uniform(-5, 4, (16, 1))
             + 1j * rng.standard_normal((16, 32)) * 10.0 ** rng.uniform(-5, 4, (16, 1))
         )
         m64 = np.exp(1j * rng.uniform(0, 2 * np.pi, (32, 32))) / 32
         x = ds.cds_from_f64(x64)
-        msl = oz.slice_matrix(m64)
-        a = oz.contract_last_oz(x, msl)
-        b = oz.contract_last_oz_kernel(x, msl)
+        a = oz.contract_last_oz(x, oz.slice_matrix(m64))
+        b = oz.contract_last_oz_nodemat(
+            x, oz.slice_matrix_nodes(m64[None]), repeat=True)
         ga = ds.to_f64(a.re) + 1j * ds.to_f64(a.im)
-        gb = ds.to_f64(b.re) + 1j * ds.to_f64(b.im)
+        gb = ds.to_f64(b.re)[0] + 1j * ds.to_f64(b.im)[0]
         ref = x64 @ m64
         scale = np.max(np.abs(ref))
         assert np.max(np.abs(ga - gb)) / scale < 1e-14
@@ -154,17 +136,6 @@ class TestPipeline:
         q_oz = ds.to_f64(jax.jit(lambda p, x: collide_ds(cfg, p, x, contract="oz"))(pre, f))
         scale = np.max(np.abs(q_vpu))
         assert np.max(np.abs(q_vpu - q_oz)) / scale < 1e-12
-
-    @pytest.mark.slow
-    def test_collide_ozk_matches_vpu(self):
-        # the forced-Pallas-kernel engine (interpreter off-TPU); slow tier —
-        # the same engine runs in TestAnisotropicDs's default-tier test
-        cfg = bz.CollisionConfig(nv=8, ns=6, n_radial=2, impl="c2c", dtype="float32")
-        pre = build_ds_precomp(cfg)
-        f = ds.from_f64(np.asarray(bz.bkw_f(cfg.velocity_grid.r_squared(), 6.5), np.float64))
-        q_vpu = ds.to_f64(collide_ds(cfg, pre, f, contract="vpu"))
-        q_ozk = ds.to_f64(collide_ds(cfg, pre, f, contract="ozk"))
-        assert np.max(np.abs(q_vpu - q_ozk)) / np.max(np.abs(q_vpu)) < 1e-12
 
     def test_oz_cmax_default_parity(self):
         """The pipeline-default retention (cmax=6) keeps ds-class parity
@@ -206,8 +177,16 @@ class TestPipeline:
             collide_ds(cfg, pre, f, contract="nope")
 
     def test_default_contract_backend(self):
-        want = "oz" if jax.default_backend() == "tpu" else "vpu"
-        assert default_contract() == want
+        # the CPU's ds engine is the bit-exact vpu reference
+        assert bz.pipeline_choice().ds_contract == "vpu"
+        cfg = bz.CollisionConfig(nv=4, ns=6, n_radial=2, impl="c2c",
+                                 dtype="float32")
+        coll, pre = bz.make_ds_collision_operator(cfg, jit=False)
+        f = ds.from_f64(np.asarray(
+            bz.bkw_f(cfg.velocity_grid.r_squared(), 6.5), np.float64))
+        np.testing.assert_array_equal(
+            ds.to_f64(coll(f, pre)),
+            ds.to_f64(collide_ds(cfg, pre, f, contract="vpu")))
 
 
 class TestPhasedTransform:
@@ -226,8 +205,6 @@ class TestPhasedTransform:
         x = ds.cds_from_f64(x64)
         phases = tuple(ds.cds_from_f64(p) for p in ph64)
 
-        # fused (kernel=False -> jnp twin off-TPU; the Mosaic path is the
-        # same algebra, validated on hardware)
         got = oz.transform3_oz_phased(x, msl, phases, conj=conj)
         g = ds.to_f64(got.re) + 1j * ds.to_f64(got.im)
 
@@ -340,7 +317,7 @@ class TestAnisotropicDs:
         pre = build_ds_precomp(cfg)
         f = ds.from_f64(f64)
         scale = np.max(np.abs(q_ref))
-        for engine in ("vpu", "ozk"):
+        for engine in ("vpu", "oz"):
             q = ds.to_f64(collide_ds(cfg, pre, f, contract=engine))
             assert q.shape == (4, 6, 8)
             assert np.max(np.abs(q - q_ref)) / scale < 1e-12, engine

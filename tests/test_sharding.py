@@ -1,7 +1,7 @@
 """Sharded-vs-single-device parity on a virtual 8-device CPU mesh.
 
 The conftest forces ``--xla_force_host_platform_device_count=8`` so these run
-without TPU hardware (SURVEY.md section 5's mocked-mesh strategy).
+without several accelerators (SURVEY.md section 5's mocked-mesh strategy).
 """
 
 import jax
@@ -36,34 +36,31 @@ class TestNodeSharding:
         scale = np.abs(q_ref).max()
         np.testing.assert_allclose(q_sh, q_ref, atol=1e-13 * scale)
 
-    def test_fused_impl_shards(self):
-        # the Pallas megakernel composes with shard_map (local node shards)
-        cfg = bz.CollisionConfig(nv=8, ns=6, impl="fused")
-        f = bz.bkw_f(cfg.velocity_grid.r_squared(), 6.5)
-        coll_ref, pre_ref = bz.make_collision_operator(
-            bz.CollisionConfig(nv=8, ns=6, impl="c2c")
-        )
-        q_ref = np.asarray(coll_ref(f, pre_ref))
-        mesh = bz.make_mesh([(bz.NODE_AXIS, 4)])
-        coll_sh, pre_sh = bz.make_sharded_collision_operator(cfg, mesh)
-        q_sh = np.asarray(coll_sh(f, bz.place(pre_sh, mesh)))
-        np.testing.assert_allclose(q_sh, q_ref, atol=1e-12 * np.abs(q_ref).max())
-
-    def test_fused_radial_group_alignment(self):
-        # Regression: with 5 shards, ceil(192/5)=39 nodes/shard would split
-        # ss005.012 radial groups across shards — the megakernel's hoisted
-        # beta1 would then use the wrong rho for mixed groups.  Shard sizing
-        # must round up to whole spherical-design groups.
-        cfg = bz.CollisionConfig(nv=8, ns=12, impl="fused")
+    @pytest.mark.parametrize("impl", ["dft", "c2c"])
+    @pytest.mark.parametrize("n_shards", [4, 5])
+    def test_staged_impls_shard(self, impl, n_shards):
+        # every staged pipeline composes with shard_map over local node
+        # shards (5 shards: uneven split with zero-weight padding)
+        cfg = bz.CollisionConfig(nv=8, ns=12, impl=impl)
         f = bz.bkw_f(cfg.velocity_grid.r_squared(), 6.5)
         coll_ref, pre_ref = bz.make_collision_operator(
             bz.CollisionConfig(nv=8, ns=12, impl="c2c")
         )
         q_ref = np.asarray(coll_ref(f, pre_ref))
-        mesh = bz.make_mesh([(bz.NODE_AXIS, 5)])
+        mesh = bz.make_mesh([(bz.NODE_AXIS, n_shards)])
         coll_sh, pre_sh = bz.make_sharded_collision_operator(cfg, mesh)
-        assert pre_sh.rho.shape[0] % (5 * cfg.ns_eff) == 0
-        q_sh = np.asarray(coll_sh(f, pre_sh))
+        q_sh = np.asarray(coll_sh(f, bz.place(pre_sh, mesh)))
+        np.testing.assert_allclose(q_sh, q_ref, atol=1e-12 * np.abs(q_ref).max())
+
+    def test_anisotropic_dft_shards(self):
+        # per-axis DFT matrices are replicated alongside the node shards
+        cfg = bz.CollisionConfig(nv=8, nvy=6, nvz=10, ns=6, impl="dft")
+        f = bz.bkw_f(cfg.velocity_grid.r_squared(), 6.5)
+        coll_ref, pre_ref = bz.make_collision_operator(cfg)
+        q_ref = np.asarray(coll_ref(f, pre_ref))
+        mesh = bz.make_mesh([(bz.NODE_AXIS, 4)])
+        coll_sh, pre_sh = bz.make_sharded_collision_operator(cfg, mesh)
+        q_sh = np.asarray(coll_sh(f, bz.place(pre_sh, mesh)))
         np.testing.assert_allclose(q_sh, q_ref, atol=1e-12 * np.abs(q_ref).max())
 
     def test_uneven_node_count_pads(self):

@@ -491,33 +491,3 @@ class TestSpatialSharding:
         with pytest.raises(ValueError, match="expected"):
             bz.place_cells(f[0, 0], mesh, x_axis="cx")
 
-
-@pytest.mark.slow
-class TestSpatialShardingFusedCollisions:
-    """The round-5 production combination: spatial shard_map decomposition
-    with the FUSED megakernel as the per-cell collision operator (the
-    `--impl auto` TPU default vmaps it over shard-local cells; jax.vmap of
-    the megakernel is bitwise-identical to per-cell calls — measured on
-    hardware, Results/taylor_green_r5.txt).  Interpret-mode parity here
-    keeps the combination from rotting."""
-
-    def test_sharded_fused_matches_unsharded(self):
-        cfg = bz.CollisionConfig(nv=8, ns=6, n_radial=2, impl="fused")
-        coll, pre = bz.make_collision_operator(cfg, jit=False)
-        rng = np.random.RandomState(7)
-        base = np.asarray(transport.sod_initial_condition(cfg, 1))[0]
-        f = jnp.asarray(
-            base[None, None] * (1.0 + 0.3 * rng.rand(8, 4, 1, 1, 1))
-        )
-        step = transport.make_inhomogeneous_step_2d(
-            cfg, coll, dx=0.3, dy=0.2, dt=0.01, knudsen=1.0
-        )
-        ref = np.asarray(jax.jit(step)(f, pre))
-        mesh = bz.make_mesh([("cx", 4), ("cy", 2)])
-        sh_step = transport.make_sharded_step_2d(
-            cfg, coll, mesh, dx=0.3, dy=0.2, dt=0.01, knudsen=1.0,
-            x_axis="cx", y_axis="cy",
-        )
-        f_sh = bz.place_cells(f, mesh, x_axis="cx", y_axis="cy")
-        out = np.asarray(sh_step(f_sh, pre))
-        np.testing.assert_allclose(out, ref, atol=2e-6 * np.abs(ref).max())

@@ -1,4 +1,5 @@
-"""Autotuner for the fused megakernel blocking (timing-probe wisdom)."""
+"""Autotuners for the staged pipelines' node chunk and the ds sub-batch
+(timing-probe wisdom)."""
 
 import json
 
@@ -8,91 +9,76 @@ import boltzfft as bz
 from boltzfft import tune
 
 
-def small_fused_cfg(**kw):
+def small_cfg(**kw):
     kw.setdefault("nv", 8)
     kw.setdefault("ns", 6)
     kw.setdefault("n_radial", 4)
-    kw.setdefault("impl", "fused")
-    kw.setdefault("fused_scheme", "ct")
+    kw.setdefault("impl", "rfft")
     kw.setdefault("dtype", "float32")
     return bz.CollisionConfig(**kw)
 
 
 class TestAutotune:
-    def test_non_fused_passthrough(self):
-        cfg = bz.CollisionConfig(nv=8, ns=6, impl="rfft")
-        assert bz.autotune_fused(cfg) is cfg
-
     def test_candidates_are_deduplicated(self):
-        cfg = small_fused_cfg()
-        cands = tune._default_candidates(cfg)
+        cfg = small_cfg(nv=16, ns=12)
+        cands = tune._chunk_candidates(cfg)
         assert len(cands) >= 1
-        # normalized blocking points are unique
-        from boltzfft import pallas_kernels as pk
+        # candidates normalize to distinct effective chunks
+        import dataclasses
 
-        seen = set()
-        for nps, sb in cands:
-            c, cc, gs = pk._ct_node_blocking(cfg.n_nodes, cfg.nv, nps,
-                                             cfg.ns_eff, sb)
-            assert (c, cc) not in seen
-            seen.add((c, cc))
+        eff = [dataclasses.replace(cfg, node_chunk=c).chunk for c in cands]
+        assert len(set(eff)) == len(eff)
+        assert all(1 <= c <= cfg.n_nodes for c in eff)
 
     def test_picks_fastest_and_memoizes(self, monkeypatch, tmp_path):
-        cfg = small_fused_cfg()
-        fake_times = {(6, 0): 2.0, (12, 0): 0.5, (24, 0): 1.0}
+        cfg = small_cfg()
+        fake_times = {3: 2.0, 6: 0.5, 12: 1.0}
         calls = []
 
         def fake_time(trial_cfg, k, trials):
-            calls.append(trial_cfg.fused_nodes_per_step)
-            return fake_times.get(
-                (trial_cfg.fused_nodes_per_step, trial_cfg.fused_sub_batch),
-                3.0,
-            )
+            calls.append(trial_cfg.node_chunk)
+            return fake_times.get(trial_cfg.node_chunk, 3.0)
 
         monkeypatch.setattr(tune, "_time_candidate", fake_time)
         tune._MEMO.clear()
         cache = tmp_path / "wisdom.json"
-        tuned = bz.autotune_fused(
-            cfg, candidates=[(6, 0), (12, 0), (24, 0)],
-            cache_file=str(cache),
-        )
-        assert tuned.fused_nodes_per_step == 12
+        tuned = bz.autotune(cfg, candidates=[3, 6, 12], cache_file=str(cache))
+        assert tuned.node_chunk == 6
         assert len(calls) == 3
 
         # memoized: no further probing
         calls.clear()
-        tuned2 = bz.autotune_fused(cfg, candidates=[(6, 0)])
-        assert tuned2.fused_nodes_per_step == 12
+        assert bz.autotune(cfg, candidates=[3]).node_chunk == 6
         assert calls == []
 
         # disk cache survives a fresh process (cleared memo)
         tune._MEMO.clear()
-        tuned3 = bz.autotune_fused(cfg, candidates=[(6, 0)],
-                                   cache_file=str(cache))
-        assert tuned3.fused_nodes_per_step == 12
+        tuned3 = bz.autotune(cfg, candidates=[3], cache_file=str(cache))
+        assert tuned3.node_chunk == 6
         assert calls == []
         assert json.loads(cache.read_text())
 
     def test_failing_candidate_skipped(self, monkeypatch):
-        cfg = small_fused_cfg()
+        cfg = small_cfg()
 
         def fake_time(trial_cfg, k, trials):
-            if trial_cfg.fused_nodes_per_step == 6:
-                raise RuntimeError("mosaic says no")
+            if trial_cfg.node_chunk == 3:
+                raise RuntimeError("out of memory")
             return 1.0
 
         monkeypatch.setattr(tune, "_time_candidate", fake_time)
         tune._MEMO.clear()
-        tuned = bz.autotune_fused(cfg, candidates=[(6, 0), (12, 0)])
-        assert tuned.fused_nodes_per_step == 12
+        assert bz.autotune(cfg, candidates=[3, 6]).node_chunk == 6
 
-    @pytest.mark.slow
-    def test_real_probe_runs(self):
-        # one real interpret-mode probe end to end (slow on CPU)
+    @pytest.mark.parametrize("impl", ["c2c", "dft"])
+    def test_memo_keyed_by_impl(self, monkeypatch, impl):
+        # a winner for one pipeline is never reused for another
+        monkeypatch.setattr(tune, "_time_candidate",
+                            lambda c, k, t: 1.0 / c.node_chunk)
         tune._MEMO.clear()
-        cfg = small_fused_cfg()
-        tuned = bz.autotune_fused(cfg, candidates=[(12, 0)], k=2, trials=1)
-        assert tuned.fused_nodes_per_step == 12
+        assert bz.autotune(small_cfg(), candidates=[4]).node_chunk == 4
+        assert bz.autotune(small_cfg(impl=impl),
+                           candidates=[2]).node_chunk == 2
 
 
 class TestStagedAutotune:
@@ -114,15 +100,6 @@ class TestStagedAutotune:
         tune._MEMO.clear()
         tuned3 = bz.autotune(cfg, k=1, trials=1, cache_file=str(wisdom))
         assert tuned3.node_chunk == tuned.node_chunk
-
-    def test_fused_dispatch(self):
-        import boltzfft as bz
-
-        cfg = bz.CollisionConfig(nv=8, ns=6, n_radial=2, impl="fused")
-        # the dispatcher must route fused configs through autotune_fused's
-        # candidate machinery (probe (nps, sub_batch), not node_chunk)
-        tuned = bz.autotune(cfg, candidates=[(6, 0)], k=1, trials=1)
-        assert tuned.fused_nodes_per_step == 6
 
 
 class TestDsAutotune:

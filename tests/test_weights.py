@@ -28,8 +28,8 @@ class TestAutoChunk:
         assert cfg.chunk == cfg.n_nodes
 
     def test_budget_from_device_memory_stats(self, monkeypatch):
-        # The budget scales with the device's reported bytes_limit; the v5e
-        # calibration point (16 GB -> 6 GB working set) is preserved exactly.
+        # The budget is a fixed share (6/16) of the device's reported
+        # bytes_limit.
         from boltzfft import weights as w
 
         class FakeDev:
@@ -41,12 +41,12 @@ class TestAutoChunk:
 
         import jax
 
-        monkeypatch.setattr(jax, "devices", lambda: [FakeDev(16 << 30)])
+        monkeypatch.setattr(jax, "local_devices", lambda: [FakeDev(16 << 30)])
         assert w._device_hbm_budget() == 6 << 30
-        monkeypatch.setattr(jax, "devices", lambda: [FakeDev(32 << 30)])
+        monkeypatch.setattr(jax, "local_devices", lambda: [FakeDev(32 << 30)])
         assert w._device_hbm_budget() == 12 << 30
-        # no stats (CPU / interpret backends) -> calibrated fallback
-        monkeypatch.setattr(jax, "devices", lambda: [FakeDev(None)])
+        # no stats (the CPU backend) -> fixed fallback
+        monkeypatch.setattr(jax, "local_devices", lambda: [FakeDev(None)])
         assert w._device_hbm_budget() == w._FALLBACK_HBM_BUDGET
 
     def test_budget_drives_chunking(self, monkeypatch):
@@ -60,19 +60,30 @@ class TestAutoChunk:
         monkeypatch.setattr(w, "_device_hbm_budget", lambda: 1 << 30)
         assert cfg.auto_chunk() == small
 
-    def test_tpu_chunk_regimes(self, monkeypatch):
-        # Measured two-regime policy (Results/staged_chunk_r4.txt): big
-        # grids run tiny chunks on TPU, small grids keep the whole batch.
+    @pytest.mark.parametrize("backend", ["cpu", "gpu"])
+    def test_fit_rule_is_backend_independent(self, monkeypatch, backend):
+        # one memory-fit rule everywhere: the chunk depends on the budget
+        # and the grid, never on which backend reports the budget
         import jax
 
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
         big = bz.CollisionConfig(nv=128, ns=12, impl="rfft", dtype="float32")
-        assert big.chunk == 2
-        small = bz.CollisionConfig(nv=32, ns=12, impl="rfft", dtype="float32")
-        assert small.chunk == small.n_nodes
-        # off-TPU keeps the HBM-fit rule at any size
-        monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
         assert big.auto_chunk(budget_bytes=64 << 30) == big.n_nodes
+        small = bz.CollisionConfig(nv=32, ns=12, impl="rfft", dtype="float32")
+        assert small.auto_chunk(budget_bytes=6 << 30) == small.n_nodes
+
+    def test_batch_shares_budget(self):
+        # distributions evaluated together (vmapped cells, ensemble members)
+        # share one budget: the chunk shrinks with the batch
+        cfg = bz.CollisionConfig(nv=32, ns=12, impl="rfft", dtype="float64")
+        budget = 6 << 30
+        one = cfg.auto_chunk(budget_bytes=budget)
+        many = cfg.auto_chunk(budget_bytes=budget, batch=256)
+        assert one == cfg.n_nodes and many < one
+        n_modes = 32 * 32 * 17
+        assert many * 256 * 9 * n_modes * 16 <= budget
+        # chunks stay an even split of the node batch
+        assert -(-cfg.n_nodes // many) * many - cfg.n_nodes < many
 
 
 class TestPrecomp:
